@@ -1,14 +1,14 @@
-"""abcsmc_tpu — a TPU-native ABC-SMC (Approximate Bayesian Computation, Sequential
-Monte Carlo) framework with Partial Least Squares particle filtering.
+"""abcsmc_tpu — an ABC-SMC (Approximate Bayesian Computation, Sequential Monte
+Carlo) framework with Partial Least Squares particle filtering, in JAX.
 
 This is a from-scratch, JAX/XLA/Pallas re-architecture of the capabilities of the
-C++ reference library ``tjhladish/AbcSmc``:
+C++ reference library ``tjhladish/AbcSmc``, run on an NVIDIA GPU:
 
 - priors / pseudo / posterior parameters become vectorized distribution modules
   (:mod:`abcsmc_tpu.models.parameters`),
 - the SMC math (perturbation-kernel-mixture importance weights, PLS-score particle
   ranking, doubled-variance kernels, truncated-normal proposal sampling) becomes fused
-  XLA/Pallas array programs over the whole particle population in HBM
+  XLA/Pallas array programs over the whole particle population in device memory
   (:mod:`abcsmc_tpu.ops`),
 - the SQLite job queue keeps a byte-compatible schema for durability / multi-process
   workers / R-visualization parity (:mod:`abcsmc_tpu.storage`), while the hot path is
@@ -18,7 +18,8 @@ C++ reference library ``tjhladish/AbcSmc``:
 - multi-chip scaling is ``jax.sharding.Mesh`` + ``shard_map`` over the particle axis
   (:mod:`abcsmc_tpu.parallel`), not MPI.
 
-Reference parity targets are cited throughout as ``/root/reference/<file>:<line>``.
+Reference parity targets are cited throughout as ``<file>:<line>`` of the
+reference tree.
 """
 
 import os as _os
@@ -26,11 +27,11 @@ import os as _os
 import jax as _jax
 
 # Statistical linear algebra throughout (covariances, PLS Grams, score
-# projections) - none of it MXU-bound, all of it accuracy-sensitive. The TPU
-# default matmul precision rounds f32 inputs to bf16, which injects ~1e-2
-# relative error into covariance/Gram products (measured on v5e, see
-# docs/TPU_VALIDATION.md); full-f32 passes cost a few percent here. Opt out
-# (e.g. for heavy neural device-simulators) via ABCSMC_MATMUL_PRECISION.
+# projections) - none of it bound by the tensor cores, all of it
+# accuracy-sensitive. On a GPU the default float32 matmul may run in TF32,
+# whose 10-bit mantissa injects ~1e-3 relative error into covariance/Gram
+# products; "highest" keeps them in full float32. Opt out (e.g. for heavy
+# neural device-simulators) via ABCSMC_MATMUL_PRECISION.
 _prec = _os.environ.get("ABCSMC_MATMUL_PRECISION", "highest")
 if _prec and _prec != "unset":
     # let jax itself validate the value (the accepted set varies by jax

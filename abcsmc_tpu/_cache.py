@@ -1,40 +1,34 @@
 """Persistent XLA compilation cache.
 
-The fused generation program is large; on remote-compile TPU backends a cold
-compile can take minutes. Enabling jax's persistent cache makes every entry
-point after the first process-fast (measured 13s -> 1s across processes on
-v5e). Safe to call multiple times; silently no-ops if the backend is already
-initialized with a cache or doesn't support one.
+The fused generation program takes tens of seconds to compile; the
+persistent cache makes every later process that compiles the same program
+start in seconds. ``JAX_COMPILATION_CACHE_DIR``, when set, is honoured as
+JAX reads it (no directory is set in code); otherwise the cache lives in the
+fixed in-checkout directory ``<repo>/.jax_cache`` - the path is part of the
+cache key, so it must not move between runs.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.join(
+DEFAULT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
 )
 
 
-def enable_persistent_cache(cache_dir: str | None = None):
+def enable_persistent_cache() -> None:
+    """Point JAX's persistent compilation cache at :data:`DEFAULT_DIR`
+    unless ``JAX_COMPILATION_CACHE_DIR`` already names one. Starts no
+    backend, so a process can still pick its platform afterwards. A process
+    held to the CPU (``jax_platforms == "cpu"``) keeps no cache: XLA:CPU
+    entries are pinned to the compiling machine's instruction set."""
     import jax
 
-    # never persist XLA:CPU AOT results: the cache entries are pinned to the
-    # compile machine's feature set and reload with SIGILL-risk warnings;
-    # the win is remote TPU compiles anyway. NB this initializes the backend,
-    # so call sites must have finalized platform selection (they have: cli,
-    # bench, entry(), and the TPU test conftest; dryrun_multichip switches
-    # platforms itself and deliberately does not call this).
-    try:
-        if jax.default_backend() == "cpu":
-            return
-    except Exception:
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-
-    path = cache_dir or os.environ.get("ABCSMC_JAX_CACHE", _DEFAULT_DIR)
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    if jax.config.jax_platforms == "cpu":
+        return
+    os.makedirs(DEFAULT_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

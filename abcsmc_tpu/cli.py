@@ -24,7 +24,7 @@ from abcsmc_tpu.errors import AbcError
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="abcsmc-tpu",
-        description="TPU-native ABC-SMC with PLS particle filtering",
+        description="ABC-SMC with PLS particle filtering, in JAX",
     )
     ap.add_argument("config_file")
     ap.add_argument("--process", action="store_true", dest="process_db")
@@ -102,10 +102,31 @@ def _write_plots(abc, prefix: str) -> None:
         sys.stderr.write(f"{path}\n")
 
 
+def _host_only(args) -> bool:
+    """True when this invocation never needs the accelerator: a pure
+    ``--simulate`` worker whose simulator is an external executable or a
+    shared library. Such workers are started in any number against one
+    database, and each JAX process that touched the GPU would reserve most
+    of its memory."""
+    if args.process_db or args.device or args.vis or not args.simulate_db:
+        return False
+    from abcsmc_tpu.config import parse_config
+
+    try:
+        cfg = parse_config(args.config_file)
+    except AbcError:
+        return False          # AbcSmc() below reports the config error
+    return bool(cfg.executable or cfg.shared) and not cfg.simulator_name
+
+
 def main(argv: list[str] | None = None) -> int:
+    args = build_argparser().parse_args(argv)
+    if _host_only(args):
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
     from abcsmc_tpu._cache import enable_persistent_cache
     enable_persistent_cache()
-    args = build_argparser().parse_args(argv)
     seed = args.seed
     if seed is None:
         # reference: time(NULL) * getpid() (examples.h:63)

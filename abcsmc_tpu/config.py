@@ -39,22 +39,18 @@ Extensions over the reference (all optional, defaulted to reference behavior):
                    gsl_ran_discrete) or "systematic" (single-offset
                    stratified resampling - strictly lower variance;
                    Kitagawa 1996)
-  ``weight_precision``  MXU dot precision of the device weight kernel:
-                   "high" (default: lane-packed 3-way split-bf16, 7.6e-6
-                   nats vs full f32 at 4.6x the speed for <= 19 params),
-                   "highest" (full f32), or "default" (single bf16 pass,
-                   ~4e-2 nats); see docs/DESIGN.md "Where the rooflines
-                   are"
   ``row_block``    device-path row chunking for very large populations:
                    unset = auto (O(N)-row passes stream through scan blocks
-                   once a shard holds >= 2^25 rows, keeping the [N, M]
-                   z-score and [N, A] score buffers out of HBM), an int > 0
-                   forces that block size, 0 disables
+                   once a shard's resident row passes would fill half the
+                   device's memory, keeping the [N, M] z-score and [N, A]
+                   score buffers out of it; never on a backend that reports
+                   no memory limit), an int > 0 forces that block size, 0
+                   disables
   ``propose_split``  run the proposal (resample + perturb) as its own
                    sharded program: unset = auto (splits once a shard's
-                   population or proposal slice reaches 2^26 rows, so
-                   rank-phase and propose-phase temporaries never coexist
-                   in HBM - the single-chip 100M path), true/false force;
+                   population or proposal slice would fill half the
+                   device's memory with rank-phase and propose-phase
+                   buffers together), true/false force;
                    draws are bit-identical to the fused step's
   ``topk_two_stage``  global top-K strategy on the mesh: unset = auto
                    (two-stage - distance gather + mesh-size-independent
@@ -192,7 +188,6 @@ class SmcConfig:
     nrmse_tolerance: float = 0.0
     pls_optimal_method: str = "vdv"
     resample_method: str = "multinomial"
-    weight_precision: str = "high"
     row_block: int | None = None
     propose_split: bool | None = None
     topk_two_stage: bool | None = None
@@ -611,6 +606,7 @@ def parse_config(source: str | os.PathLike | dict) -> SmcConfig:
             code=1,
         )
 
+    _reject_removed_keys(par)
     retain_posterior_rank = bool(par.get("retain_posterior_rank", False))
 
     model_par = par.get("parameters", [])
@@ -746,7 +742,6 @@ def parse_config(source: str | os.PathLike | dict) -> SmcConfig:
         ),
         pls_optimal_method=_parse_pls_optimal_method(par),
         resample_method=_parse_resample_method(par),
-        weight_precision=_parse_weight_precision(par),
         row_block=_parse_row_block(par),
         propose_split=_parse_propose_split(par),
         topk_two_stage=_parse_tristate_bool(par, "topk_two_stage"),
@@ -825,12 +820,12 @@ def _parse_row_block(par: dict):
     return rb_int
 
 
-def _parse_weight_precision(par: dict) -> str:
-    prec = str(par.get("weight_precision", "high"))
-    if prec not in ("high", "highest", "default"):
+def _reject_removed_keys(par: dict) -> None:
+    """Keys that once selected behaviour which no longer exists. A config
+    that still sets one is refused, never silently ignored."""
+    if "weight_precision" in par:
         raise ConfigError(
-            f"weight_precision must be 'high', 'highest' or 'default', "
-            f"got {prec!r}",
+            "weight_precision was removed: the device weight kernel always "
+            "computes in float32; delete the key from the config",
             code=1,
         )
-    return prec

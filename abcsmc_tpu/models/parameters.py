@@ -40,7 +40,7 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 def default_float():
-    """float64 when jax x64 is enabled (CPU parity runs), else float32 (TPU)."""
+    """float64 when jax x64 is enabled (CPU parity runs), else float32 (GPU)."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 

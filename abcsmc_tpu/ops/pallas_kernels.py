@@ -1,295 +1,122 @@
-"""Pallas TPU kernels for the hot SMC ops.
+"""Pallas GPU kernel (Triton route) for the SMC weight denominator.
 
 ``mixture_logsumexp``: the kernel-mixture weight denominator
-(src/AbcUtil.cpp:563-578 - the O(N*M*P) loop) as a flash-attention-style
-streaming kernel: for each block of query particles, stream blocks of the
-previous generation's survivors through VMEM, compute the scaled-distance
-logits as one MXU matmul, and maintain an online logsumexp in scratch - the
-N x M logit matrix never exists in HBM.
+(src/AbcUtil.cpp:563-578 - the O(N*M*P) loop) as one fused pass that never
+writes the N x M logit matrix to device memory:
 
-Per logit the work is a 128-lane MXU dot (the feature axis is lane-padded)
-plus streaming exp/max/sum on the VPU; measured on v5e the MXU share
-dominates above ~100k mixtures at full-f32 ("highest" = 6 bf16 passes) and
-the VPU share dominates below (docs/DESIGN.md "Where the rooflines are").
-The design therefore attacks both:
+- the grid runs over tiles of query rows only; each program walks every
+  tile of mixture centers in a ``fori_loop`` and keeps an online max and
+  sum per query row in registers (flash-attention style),
+- each logit tile is one small product of feature-augmented operands,
 
-- ALL affine terms ride the MXU via feature augmentation: the inputs are
-  extended with two columns so that
+      a_aug_i = [c*a_i, -|a_i|^2 log2(e)/2, 1, 0...]
+      b_aug_j = [c*b_j, 1, (log w_j - |b_j|^2/2) log2(e), 0...]
+      a_aug_i . b_aug_j = log2(e) * (log w_j - |a_i - b_j|^2 / 2)
 
-      dot(a_aug_i, b_aug_j) = a_i . b_j - ||a_i||^2/2 - max_lw   (row consts)
-                              + log_w_j - ||b_j||^2/2            (col consts)
+  with c = sqrt(log2 e), so the inner loop is the product, a row max and
+  ``exp2``. The contraction is only P + 2 wide (zero-padded to 16). The
+  product runs as ``F32_F32_F32``: plain float32 FMAs on the CUDA cores,
+  no TF32 - the same expansion, at the same precision, as the XLA path's
+  HIGHEST-precision dot.
 
-  i.e. the full shifted logit is the raw matmul output - zero VPU
-  broadcasts in the inner loop (the feature axis is lane-padded to 128
-  anyway, so the two extra columns are free).
-- The default path uses a STATIC max: the true logit is bounded above by
-  max_j log_w_j (distances are non-positive contributions), so
-  exp(logit - max_lw) never overflows and the online row-max bookkeeping
-  (max + rescale + subtract per tile) disappears; the inner loop is exactly
-  exp + accumulate. In SMC states every query has its resample parent in
-  the mixture within ~1 kernel sd, so the sum cannot underflow; if an
-  adversarial input DOES underflow a row to exp-sum 0, the wrapper detects
-  the -inf and reruns the call through the online-max kernel (sound for any
-  input) via lax.cond - correctness never depends on the assumption.
+A zero mixture weight (``log w = -inf``) is clamped to -1e30, which
+contributes exactly nothing next to any finite weight. The XLA path
+(``ops.weights._log_kernel_mixture_density_xla``) is the reference and the
+CPU route; tests run this kernel in interpret mode.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-NEG_INF = -1e30
+_LOG2E = math.log2(math.e)
+_NEG = -1e30
+# tiles and warps: the fastest measured at p = 6 on an H100 (PERF.md)
+_BLOCK_Q, _BLOCK_K, _NUM_WARPS = 64, 64, 4
 
 
-def _dot_logits(refs, precision):
-    """The logit tile. Two input layouts:
+def _kernel(a_ref, b_ref, out_ref, *, block_q, block_k, n_tiles):
+    """One tile of query rows against every center tile.
 
-    - 2 refs (a, b): one dot at ``precision``. "highest" = Mosaic's fused
-      6-pass full-f32 product; "default" = single bf16 pass - which is also
-      how the PACKED split-bf16 layout runs: the caller concatenates the
-      hi/mid/lo bf16 sections of both operands along the (lane-padded)
-      contraction axis so this single default-precision dot accumulates all
-      six cross terms of the full-f32 product (see mixture_logsumexp).
-    - 4 refs (a_hi, a_lo, b_hi, b_lo): the wide-p fallback - hand-rolled
-      3-pass split-bf16 product, hi/lo HALVES PRE-SPLIT OUTSIDE the kernel.
-      (An in-kernel split was tried in round 2 and measured SLOWER than
-      "highest" - the per-tile split work and re-traversals ate the gain.)
-    """
-    if len(refs) == 2:
-        a_ref, b_ref = refs
-        return jnp.dot(
-            a_ref[:], b_ref[:].T, preferred_element_type=jnp.float32,
-            precision=precision,
+    a_ref: [BQ, K] augmented queries; b_ref: [K, Mpad] augmented centers
+    (padding centers carry a -1e30 log weight); out_ref: [BQ] result in
+    natural-log units."""
+    a = a_ref[...]
+    m0 = jnp.full((block_q,), _NEG, jnp.float32)
+    l0 = jnp.zeros((block_q,), jnp.float32)
+
+    def body(t, carry):
+        m_prev, l_prev = carry
+        b = b_ref[:, pl.ds(t * block_k, block_k)]
+        logit = pl.dot(a, b, precision=lax.DotAlgorithmPreset.F32_F32_F32)
+        m_next = jnp.maximum(m_prev, jnp.max(logit, axis=1))
+        l_next = l_prev * jnp.exp2(m_prev - m_next) + jnp.sum(
+            jnp.exp2(logit - m_next[:, None]), axis=1
         )
-    a_hi, a_lo, b_hi, b_lo = refs
-    # operands are f32 whose values are bf16-exact (hi) / tiny residuals
-    # (lo); the DEFAULT-precision dot rounds them to bf16 losslessly (hi)
-    # or far below the 2^-16 target (lo)
-    kw = dict(preferred_element_type=jnp.float32, precision="default")
-    return (
-        jnp.dot(a_hi[:], b_hi[:].T, **kw)
-        + jnp.dot(a_hi[:], b_lo[:].T, **kw)
-        + jnp.dot(a_lo[:], b_hi[:].T, **kw)
-    )
+        return m_next, l_next
+
+    m, l = lax.fori_loop(0, n_tiles, body, (m0, l0))
+    out_ref[...] = (m + jnp.log2(l)) / _LOG2E
 
 
-def _mixture_kernel_static(*args, precision):
-    """Inner loop: s += sum_j exp(dot). Row/col constants are baked into the
-    augmented inputs, the max is the a-priori bound (see module docstring)."""
-    *in_refs, out_ref, s_scr = args
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
-
-    @pl.when(j == 0)
-    def _():
-        s_scr[:] = jnp.zeros_like(s_scr)
-
-    logits = _dot_logits(in_refs, precision)            # [BI, BJ]
-    s_scr[:] += jnp.sum(jnp.exp(logits), axis=1, keepdims=True)
-
-    @pl.when(j == nj - 1)
-    def _():
-        out_ref[:] = jnp.log(s_scr[:])
-
-
-def _mixture_kernel_online(*args, precision):
-    """Online-max variant: sound for arbitrary inputs (underflow-proof)."""
-    *in_refs, out_ref, m_scr, s_scr = args
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
-
-    @pl.when(j == 0)
-    def _():
-        m_scr[:] = jnp.full_like(m_scr, NEG_INF)
-        s_scr[:] = jnp.zeros_like(s_scr)
-
-    logits = _dot_logits(in_refs, precision)            # [BI, BJ]
-
-    run_max = m_scr[:]                                  # [BI, 1]
-    blk_max = jnp.max(logits, axis=1, keepdims=True)
-    new_max = jnp.maximum(run_max, blk_max)
-    s_scr[:] = s_scr[:] * jnp.exp(run_max - new_max) + jnp.sum(
-        jnp.exp(logits - new_max), axis=1, keepdims=True
-    )
-    m_scr[:] = new_max
-
-    @pl.when(j == nj - 1)
-    def _():
-        out_ref[:] = m_scr[:] + jnp.log(s_scr[:])
-
-
-def _split_bf16(x):
-    """x (f32) -> (hi, lo) f32 pair with hi exactly bf16-representable
-    (low 16 mantissa bits masked off) and lo = x - hi the residual.
-
-    Bit-masked, NOT astype-round-tripped: XLA's TPU bf16-propagation pass
-    elides f32->bf16->f32 convert chains, which silently zeroes the lo half
-    (observed on hardware: the 'high' path matched plain bf16 bit-for-bit
-    until this was bitcast-based). Masking truncates toward zero rather
-    than round-to-nearest - that costs at most one bf16 ulp on hi, which lo
-    then carries exactly."""
-    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
-    hi = jax.lax.bitcast_convert_type(
-        bits & jnp.uint32(0xFFFF0000), jnp.float32
-    )
-    return hi, x - hi
-
-
-def _split_bf16_3(x):
-    """x (f32) -> (hi, mid, lo) f32 triple, each exactly bf16-representable,
-    with hi + mid + lo == x to full f32 precision (3 x 8 = 24 mantissa bits
-    covers the f32 significand; a 2-way split only covers 16 - that is where
-    the 3-pass path's 2.3e-4 nats floor came from)."""
-    hi, r = _split_bf16(x)
-    mid, lo = _split_bf16(r)
-    return hi, mid, lo
-
-
-def _pallas_logsumexp(operands, ni, nj, block_i, block_j, p_aug,
-                      interpret, precision, static: bool):
-    kernel = _mixture_kernel_static if static else _mixture_kernel_online
-    scratch = [pltpu.VMEM((block_i, 1), jnp.float32)]
-    if not static:
-        scratch = [pltpu.VMEM((block_i, 1), jnp.float32)] + scratch
-    n_ops = len(operands)
-    a_spec = pl.BlockSpec((block_i, p_aug), lambda i, j: (i, 0),
-                          memory_space=pltpu.VMEM)
-    b_spec = pl.BlockSpec((block_j, p_aug), lambda i, j: (j, 0),
-                          memory_space=pltpu.VMEM)
-    in_specs = [a_spec, b_spec] if n_ops == 2 else [
-        a_spec, a_spec, b_spec, b_spec
-    ]
-    return pl.pallas_call(
-        functools.partial(kernel, precision=precision),
-        grid=(ni, nj),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((block_i, 1), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((ni * block_i, 1), jnp.float32),
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(*operands)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("block_i", "block_j", "interpret", "precision", "mode"),
-)
-def mixture_logsumexp(
-    a, b, log_w, block_i: int = 512, block_j: int = 2048,
-    interpret: bool = False, precision: str = "highest", mode: str = "auto",
-):
-    """out[i] = logsumexp_j(a_i.b_j - |a_i|^2/2 - |b_j|^2/2 + log_w[j]).
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def mixture_logsumexp(a, b, log_w, *, interpret: bool = False):
+    """out[i] = logsumexp_j(log_w[j] - 0.5 * ||a_i - b_j||^2) in float32.
 
     a: [n, p] scaled query particles; b: [m, p] scaled mixture centers;
-    log_w: [m] log mixture weights. Returns [n] float32.
-
-    ``precision`` sets the MXU dot scheme: "highest" = Mosaic's 6-pass full
-    f32; "high" = split-bf16 - PACKED into one 128-lane bf16 pass whenever
-    6*(p+2) <= 128 (full-f32-class accuracy at 4.6x "highest" throughput,
-    measured at 500k^2 on v5e; see the packed-layout comment below), else
-    the 3-pass hi/lo fallback
-    (~2.3e-4 nats); "default" = one plain bf16 pass (~4e-2 nats).
-
-    ``mode``: "auto" (static-max fast kernel, with a sound lax.cond rerun
-    through the online kernel if any row's exp-sum underflows - see module
-    docstring), "static" (no fallback), "online" (always the online-max
-    kernel).
+    log_w: [m] log mixture weights. Rows, centers and the feature axis are
+    padded to the tile sizes here and trimmed on return.
     """
+    block_q, block_k = _BLOCK_Q, _BLOCK_K
     a = jnp.asarray(a, jnp.float32)
     b = jnp.asarray(b, jnp.float32)
-    # a TRUE -inf log-weight (a zero mixture weight, e.g. one dominating
-    # survivor underflowing the rest) must be clamped to the finite sentinel
-    # BEFORE augmentation: the split-bf16 path computes lo = x - hi, and
-    # (-inf) - (-inf) = NaN would spread through one MXU pass to every logit
-    log_w = jnp.maximum(jnp.asarray(log_w, jnp.float32), NEG_INF)
+    log_w = jnp.maximum(jnp.asarray(log_w, jnp.float32), _NEG)
     n, p = a.shape
     m = b.shape[0]
-
-    # the a-priori logit bound: -0.5 d^2 <= 0, so logit <= max_j log_w_j
-    max_lw = jnp.max(jnp.where(log_w > NEG_INF / 2, log_w, -jnp.inf))
-    max_lw = jnp.where(jnp.isfinite(max_lw), max_lw, 0.0)
-
-    ni = -(-n // block_i)
-    nj = -(-m // block_j)
-    m_pad = nj * block_j - m
-
-    # --- feature augmentation: fold every affine term into the matmul ---
-    # a_aug = [a, -0.5|a|^2 - max_lw, 1]; b_aug = [b, 1, log_w - 0.5|b|^2]
-    # => dot(a_aug, b_aug) = (true logit) - max_lw, elementwise-op-free.
+    k = -(-(p + 2) // 16) * 16
+    n_pad = -(-n // block_q) * block_q
+    n_tiles = -(-m // block_k)
+    m_pad = n_tiles * block_k
+    c = math.sqrt(_LOG2E)
     asq = jnp.sum(a * a, axis=1, keepdims=True)
     bsq = jnp.sum(b * b, axis=1, keepdims=True)
-    lwb = log_w[:, None] - 0.5 * bsq
-    # pad the center count BEFORE augmenting: padded centers carry b = 0 and
-    # an augmented log-weight of NEG_INF, i.e. exp -> 0
-    b_p = jnp.pad(b, ((0, m_pad), (0, 0)))
-    lwb = jnp.pad(lwb, ((0, m_pad), (0, 0)), constant_values=NEG_INF)
     a_aug = jnp.concatenate(
-        [a, -0.5 * asq - max_lw, jnp.ones((n, 1), jnp.float32)], axis=1
+        [a * c, -0.5 * _LOG2E * asq, jnp.ones((n, 1), jnp.float32)], axis=1
+    )
+    lwb = jnp.pad(
+        _LOG2E * (log_w[:, None] - 0.5 * bsq), ((0, m_pad - m), (0, 0)),
+        constant_values=_NEG,
     )
     b_aug = jnp.concatenate(
-        [b_p, jnp.ones((m + m_pad, 1), jnp.float32), lwb], axis=1
+        [jnp.pad(b * c, ((0, m_pad - m), (0, 0))),
+         jnp.pad(jnp.ones((m, 1), jnp.float32), ((0, m_pad - m), (0, 0))),
+         lwb], axis=1,
     )
-
-    p2 = p + 2
-    kernel_precision = precision
-    if precision == "high" and 6 * p2 <= 128:
-        # PACKED split-bf16: the contraction axis is lane-padded to 128
-        # anyway, so instead of 3 separate 128-lane bf16 passes (a_hi.b_hi +
-        # a_hi.b_lo + a_lo.b_hi), ride ALL cross terms of a 3-way bf16 split
-        # in the free lanes of ONE pass. With hi/mid/lo covering the full 24
-        # f32 mantissa bits, the 6 section pairs
-        #     (hi,hi) (hi,mid) (mid,hi) (hi,lo) (mid,mid) (lo,hi)
-        # reconstruct the f32 product to ~2^-24 (the dropped (mid,lo),
-        # (lo,mid), (lo,lo) terms are < 2^-27 relative); the MXU rounds each
-        # operand element to bf16 losslessly since every section is
-        # bf16-exact by construction. One bf16 pass + half the operand DMA
-        # of the 4-ref layout => 2.4x the old "high" throughput (measured,
-        # 500k^2 on v5e: 1083 -> 449 ms) at BETTER
-        # (full-f32-class) accuracy. Needs 6*(p+2) <= 128, i.e. p <= 19 -
-        # every SMC parameter-space shape; larger p falls back to the
-        # 3-pass layout below.
-        ah, am, al = _split_bf16_3(a_aug)
-        bh, bm, bl = _split_bf16_3(b_aug)
-        a_aug = jnp.concatenate([ah, ah, am, ah, am, al], axis=1)
-        b_aug = jnp.concatenate([bh, bm, bh, bl, bm, bh], axis=1)
-        p2 = 6 * p2
-        kernel_precision = "default"  # the sections ARE the precision scheme
-
-    # lane-pad the feature axis (zero columns contribute nothing) and the
-    # query count (all-zero rows: dot = 0, harmless, trimmed on return)
-    p_aug = max(128, -(-p2 // 128) * 128)
-    a_aug = jnp.pad(a_aug, ((0, ni * block_i - n), (0, p_aug - p2)))
-    b_aug = jnp.pad(b_aug, ((0, 0), (0, p_aug - p2)))
-
-    if kernel_precision == "high":
-        # wide-p fallback: Mosaic has no built-in 3-pass f32 dot; hand-split
-        # into bf16 hi/lo halves OUTSIDE the kernel (see _dot_logits)
-        operands = [*_split_bf16(a_aug), *_split_bf16(b_aug)]
-    else:
-        operands = [a_aug, b_aug]
-
-    run = functools.partial(
-        _pallas_logsumexp, operands, ni, nj, block_i, block_j, p_aug,
-        interpret, kernel_precision,
-    )
-
-    if mode == "online":
-        return run(static=False)[:n, 0] + max_lw
-    out_static = run(static=True)[:n, 0] + max_lw
-    if mode == "static":
-        return out_static
-    # auto: if an adversarial input underflowed a row (log(0) = -inf),
-    # recompute everything with the online-max kernel. Never taken in SMC
-    # states (every query's resample parent is in the mixture), so the
-    # branch costs one all-finite check
-    ok = jnp.all(jnp.isfinite(out_static))
-    return jax.lax.cond(
-        ok,
-        lambda: out_static,
-        lambda: run(static=False)[:n, 0] + max_lw,
-    )
+    a_aug = jnp.pad(a_aug, ((0, n_pad - n), (0, k - p - 2)))
+    b_aug = jnp.pad(b_aug, ((0, 0), (0, k - p - 2)))
+    out = pl.pallas_call(
+        functools.partial(
+            _kernel, block_q=block_q, block_k=block_k, n_tiles=n_tiles
+        ),
+        grid=(n_pad // block_q,),
+        in_specs=[
+            pl.BlockSpec((block_q, k), lambda i: (i, 0)),
+            pl.BlockSpec((k, m_pad), lambda i: (0, 0)),
+        ],
+        out_specs=pl.BlockSpec((block_q,), lambda i: (i,)),
+        out_shape=jax.ShapeDtypeStruct((n_pad,), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=2
+        ),
+        interpret=interpret,
+        name="mixture_logsumexp",
+    )(a_aug, b_aug.T)
+    return out[:n]

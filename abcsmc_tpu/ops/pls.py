@@ -1,4 +1,4 @@
-"""Partial Least Squares regression, TPU-first.
+"""Partial Least Squares regression, accelerator-first.
 
 The reference's PLS lives in the absent ``lib/PLS`` submodule (upstream
 tjhladish/PLS, a NIPALS-family / kernel PLS per Dayal & MacGregor); the normative
@@ -13,7 +13,7 @@ This implementation uses the **improved kernel PLS algorithm #1** (Dayal &
 MacGregor 1997, J. Chemometrics 11:73-85): the entire fit operates on the Gram
 matrices X'X (m x m) and X'Y (m x p), never on the n x m data matrix, so
 
-- the O(n) work is two matmuls that ride the MXU and shard over the particle axis
+- the O(n) work is two matmuls that shard over the particle axis
   with a single psum (see abcsmc_tpu.parallel),
 - the per-component iteration is O(m^2) on tiny matrices,
 - scores are one matmul: T = X @ R.

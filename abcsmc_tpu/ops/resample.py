@@ -25,11 +25,11 @@ def categorical_indices(key, weights, num_samples: int):
 
     Statistically identical to gsl_ran_discrete (iid draws, unnormalized
     weights fine) but O(N log K) - jax.random.categorical would materialize an
-    [N, K] Gumbel tensor, which measured 9x slower at N=1M, K=50k on v5e."""
+    [N, K] Gumbel tensor."""
     w = jnp.asarray(weights)
     cdf = jnp.cumsum(w)
     u = jax.random.uniform(key, (num_samples,), w.dtype) * cdf[-1]
-    idx = jnp.searchsorted(cdf, u, method="sort")  # 3x scan at 1M/50k on v5e
+    idx = jnp.searchsorted(cdf, u, method="sort")
     return jnp.minimum(idx, w.shape[0] - 1)
 
 
@@ -122,8 +122,9 @@ def setup_mvn_sampler(params):
     params = jnp.asarray(params)
     n = params.shape[0]
     centered = params - jnp.mean(params, axis=0)[None, :]
-    # full-f32 dot: the TPU default rounds inputs to bf16, which feeds ~1e-2
-    # relative error into the covariance (and thence the Cholesky/proposal)
+    # full-f32 dot: a reduced-precision product (TF32 on a GPU) would feed
+    # ~1e-3 relative error into the covariance (and thence the
+    # Cholesky/proposal)
     sigma = jnp.matmul(
         centered.T, centered, precision=jax.lax.Precision.HIGHEST
     ) / jnp.maximum(n - 1, 1)

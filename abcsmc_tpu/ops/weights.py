@@ -7,7 +7,8 @@ The reference computes, for each surviving particle i of generation t
 
 where theta' / w' are the previous generation's predictive prior and weights and
 dv is the previous generation's per-parameter *doubled variance*. The C++ loop is
-O(N * M * P) scalar work; here the mixture densities become one MXU matmul:
+O(N * M * P) scalar work; here the XLA path turns the mixture densities into
+one matmul per block of centers:
 
     scale columns by 1/sqrt(dv) (after centering both populations by the same
     vector - the kernel only sees differences, so centering is free and keeps the
@@ -18,8 +19,10 @@ O(N * M * P) scalar work; here the mixture densities become one MXU matmul:
     log K_ij = -0.5 * sum_p (...) + C,  C = -0.5 * sum_p log(2 pi dv_p)
     log den_i = logsumexp_j (log w'_j + log K_ij)
 
-computed block-streamed over j (flash-attention-style online logsumexp) so the
-N x M kernel matrix is never materialized in HBM.
+computed block-streamed over j (flash-attention-style online logsumexp) so at
+most an N x block tile of logits exists at a time. On a GPU the Pallas kernel
+(ops/pallas_kernels.py) computes the same sum with direct differences and keeps
+every logit in registers.
 
 Parity quirks preserved:
 - converged-parameter escape hatch: a parameter column with dv == 0 contributes no
@@ -62,32 +65,24 @@ def _prep_scaled(params, prev_params, prev_doubled_variance):
 
 def log_kernel_mixture_density(
     params, prev_params, prev_log_weights, prev_doubled_variance,
-    block: int = 2048, backend: str = "auto", precision: str = "highest",
+    block: int = 2048,
 ):
     """log den_i = logsumexp_j [ log w'_j - 0.5 * sum_p (d_ijp^2 / dv_p) + C ].
 
-    ``backend``: "pallas" uses the fused flash-style TPU kernel
-    (abcsmc_tpu.ops.pallas_kernels.mixture_logsumexp); "xla" streams j-blocks
-    through a lax.scan with an online logsumexp; "auto" picks pallas on TPU
-    f32 and xla elsewhere (f64 parity runs stay on xla).
-
-    ``precision``: MXU dot precision of the pallas path (at full f32 the
-    MXU passes dominate above ~100k mixtures; see docs/DESIGN.md "Where
-    the rooflines are").
+    float32 on a GPU runs the fused Pallas kernel
+    (:func:`abcsmc_tpu.ops.pallas_kernels.mixture_logsumexp`); every other
+    case (the CPU, float64 parity runs) streams ``block``-wide center tiles
+    through the XLA path, which is also the kernel's reference.
     """
-    if backend == "auto":
-        on_tpu = jax.default_backend() not in ("cpu", "gpu")
-        f32 = jnp.asarray(params).dtype == jnp.float32
-        backend = "pallas" if (on_tpu and f32) else "xla"
-    if backend == "pallas":
+    params = jnp.asarray(params)
+    if params.dtype == jnp.float32 and jax.default_backend() == "gpu":
         from abcsmc_tpu.ops.pallas_kernels import mixture_logsumexp
 
         a, b, log_norm = _prep_scaled(
             params, prev_params, prev_doubled_variance
         )
         return mixture_logsumexp(
-            a, b, jnp.asarray(prev_log_weights, a.dtype),
-            precision=precision,
+            a, b, jnp.asarray(prev_log_weights, a.dtype)
         ) + log_norm
     return _log_kernel_mixture_density_xla(
         params, prev_params, prev_log_weights, prev_doubled_variance, block
@@ -118,9 +113,8 @@ def _log_kernel_mixture_density_xla(
         bb, lwb = inp
         b_sq = jnp.sum(bb * bb, axis=1)  # [block]
         # -0.5 * ||a_i - b_j||^2 = a.b - 0.5||a||^2 - 0.5||b||^2
-        # full-f32 dot: on TPU the default bf16 input rounding dominates the
-        # log-density error (~4e-2 at 50k mixtures); the kernel is VPU-bound
-        # so the extra MXU passes are nearly free (docs/TPU_VALIDATION.md)
+        # full-f32 dot: a reduced-precision product (bf16, or TF32 on a
+        # GPU) would dominate the log-density error
         logits = (
             jnp.matmul(a, bb.T, precision=jax.lax.Precision.HIGHEST)
             - 0.5 * a_sq[:, None]

@@ -2,9 +2,10 @@
 
 The reference distributes work as N independent processes polling a SQLite file
 (SURVEY 2, parallelism strategy 1) or an MPI master-worker loop (strategy 2).
-The TPU-native equivalent is SPMD over a 1-D device mesh on the *particle* axis:
+Here the equivalent is SPMD over a 1-D device mesh on the *particle* axis:
 every particle-indexed array is sharded on axis 0, collectives (psum for global
-moments/Gram matrices, all_gather for global top-k) ride ICI, and dynamic load
+moments/Gram matrices, all_gather for global top-k) cross the device
+interconnect (NVLink between the cards of one host), and dynamic load
 balancing is unnecessary because vectorized simulators are statically balanced.
 """
 
@@ -37,16 +38,23 @@ def initialize_distributed(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids: list[int] | None = None,
 ):
-    """Multi-host initialization (replaces the reference's MPI_Init): call once
-    per host before building the mesh; jax.distributed wires the hosts and
-    jax.devices() then spans the whole slice/pod. No-op if already initialized.
-    """
+    """Multi-process initialization (replaces the reference's MPI_Init): call
+    once per process before building the mesh; jax.distributed wires the
+    processes and jax.devices() then spans all of them. No-op if already
+    initialized.
+
+    ``local_device_ids`` names the cards of this host that this process
+    owns. Several processes on one host must each get their own (e.g.
+    ``[local_rank]``): a JAX process reserves most of every card it opens,
+    so two processes on one card fail for want of memory."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids,
         )
     except RuntimeError as e:
         if "already initialized" not in str(e):

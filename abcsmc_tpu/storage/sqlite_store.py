@@ -36,7 +36,7 @@ MET_TABLE = "met"
 #: in windows of this many rows, so the peak host overhead is O(window)
 #: boxed Python floats instead of O(N) - a whole-matrix .tolist() of a
 #: 100M-row [N, P] f64 matrix is tens of GB of PyFloat objects and OOMs the
-#: host long before sqlite sees a row (VERDICT r4 weak #2). The enclosing
+#: host long before sqlite sees a row. The enclosing
 #: transaction still spans ALL windows: a crash mid-insert rolls the whole
 #: generation back, preserving the reference's the-DB-is-the-checkpoint
 #: contract (a set is either fully present or absent,

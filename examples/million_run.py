@@ -1,6 +1,5 @@
-"""BASELINE configs[4]: a 1M-particle multi-generation SMC run sharded over
-whatever mesh is available, with per-generation wall-times and survivor
-checkpoints.
+"""A 1M-particle multi-generation SMC run sharded over whatever mesh is
+available, with per-generation wall-times and survivor checkpoints.
 
     python examples/million_run.py [n_particles] [generations]
 """
@@ -64,14 +63,14 @@ def main(n=1_000_000, gens=3):
     params, seeds = gen.init_population(k0, n)
     jax.block_until_ready(params)
     print(f"[gen0 sample] {time.perf_counter()-t0:.2f}s "
-          f"({n} particles, {ndev} device(s))")
+          f"({n} particles, {ndev} x {jax.devices()[0].device_kind})")
 
     state = None
     for t in range(gens):
         key, kt = jax.random.split(key)
         t0 = time.perf_counter()
         res = gen.step(kt, params, seeds, keep, n, state)
-        np.asarray(jax.device_get(res.next_params[0, 0]))  # sync
+        jax.block_until_ready(res)
         dt = time.perf_counter() - t0
         surv = np.asarray(res.survivor_params)
         err = np.abs(surv.mean(0) - truth).mean()

@@ -1,6 +1,6 @@
 // abcq: native job-queue worker pool for external (black-box) simulators.
 //
-// TPU-native replacement for the reference's two host-side distribution
+// Replacement for the reference's two host-side distribution
 // mechanisms (SURVEY 2 "parallelism strategies"):
 //   - the SQLite claim/writeback protocol (reference src/AbcSmc.cpp:877-965:
 //     BEGIN EXCLUSIVE claim of Q/R jobs ordered by (status, attempts),

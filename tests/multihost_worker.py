@@ -47,6 +47,7 @@ Modes:
 Any other mode string is an error (exit 2), never a silent fallback.
 """
 
+import os
 import sys
 
 import jax
@@ -67,7 +68,7 @@ jax.distributed.initialize(
     process_id=proc_id,
 )
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 

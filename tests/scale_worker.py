@@ -1,5 +1,5 @@
 """Pod-scale virtual-mesh worker: numerically EXECUTE the sharded regimes
-that only appear above 8 devices (VERDICT r4 item 1), in a fresh process
+that only appear above 8 devices, in a fresh process
 whose CPU backend is configured with N virtual devices (the pytest process
 itself is pinned to 8 by tests/conftest.py, so >8-device execution needs a
 subprocess).
@@ -24,9 +24,10 @@ Scenarios (each asserts internally, then writes one JSON line to out_path):
 
 Reference target: the cluster-scale fan-out heritage this framework
 replaces (/root/reference/README.md:4, examples/scratch/job.slurm - 256
-MPI ranks); these scenarios are the TPU-native pod-count analog.
+MPI ranks); these scenarios are the device-mesh analog at that count.
 """
 
+import os
 import json
 import sys
 
@@ -40,7 +41,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", n_devices)
 jax.config.update("jax_enable_x64", True)
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -1,7 +1,9 @@
 """Config parsing parity tests against the reference JSON schema
-(/root/reference/src/AbcSmc.cpp:54-430)."""
+(src/AbcSmc.cpp:54-430), on in-repo fixtures rebuilt from the reference's
+documented quick-start and projection examples."""
 
 import json
+import os
 
 import pytest
 
@@ -15,8 +17,9 @@ from abcsmc_tpu.config import (
     parse_config,
 )
 
-REFERENCE_JSON = "/root/reference/examples/reference.json"
-PSEUDO_JSON = "/root/reference/examples/pseudo/config.json"
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+REFERENCE_JSON = os.path.join(FIXTURES, "reference_quickstart.json")
+PSEUDO_JSON = os.path.join(FIXTURES, "reference_pseudo.json")
 
 
 def test_reference_json_verbatim():
@@ -320,3 +323,13 @@ def test_uniform_reversed_bounds_is_coded_config_error():
         parsed = parse_config(cfg)  # schema-valid; bounds checked at build
         with pytest.raises(ConfigError):
             ParameterSet.from_specs(parsed.parameters)
+
+
+def test_removed_weight_precision_key_is_refused():
+    """The removed precision key of the old weight kernel: a config that
+    still sets it is a coded error, never silently ignored."""
+    base = json.load(open(REFERENCE_JSON))
+    cfg = dict(base, weight_precision="high")
+    with pytest.raises(ConfigError, match="weight_precision was removed") as e:
+        parse_config(cfg)
+    assert e.value.code == 1

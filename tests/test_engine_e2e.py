@@ -2,6 +2,7 @@
 examples/README.md:27-34) with its analytic inverse as the statistical oracle,
 plus storage / lifecycle parity checks."""
 
+import os
 import json
 import sqlite3
 
@@ -220,7 +221,8 @@ def test_at_least_once_reclaim(tmp_path):
 
 def test_engine_accepts_reference_config_file():
     abc = AbcSmc(
-        "/root/reference/examples/reference.json",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                     "reference_quickstart.json"),
         simulator=make_dice_simulator(max_dice=1000),
         storage=MemoryStorage(),
     )
@@ -244,7 +246,7 @@ def test_concurrent_process_claims(tmp_path):
 
     worker = (
         "import sys, json\n"
-        "sys.path.insert(0, '/root/repo')\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})\n"
         "from abcsmc_tpu.storage import SQLiteStorage\n"
         f"st = SQLiteStorage({db!r})\n"
         "claimed = []\n"

@@ -2,13 +2,17 @@
 
 import glob
 import json
+import os
 
 import pytest
 
 from abcsmc_tpu.config import parse_config
 from abcsmc_tpu.models.simulators import resolve_simulator
 
-CONFIGS = sorted(glob.glob("/root/repo/examples/*.json"))
+EXAMPLES = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples"
+)
+CONFIGS = sorted(glob.glob(os.path.join(EXAMPLES, "*.json")))
 
 
 def test_examples_exist():
@@ -31,7 +35,11 @@ def test_example_parses_and_binds(path):
 
 
 def test_reference_configs_still_parse():
-    for path in ("/root/reference/examples/reference.json",
-                 "/root/reference/examples/pseudo/config.json"):
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
+    for path in (os.path.join(fixtures, "reference_quickstart.json"),
+                 os.path.join(fixtures, "reference_pseudo.json"),
+                 os.path.join(EXAMPLES, "dice.json"),
+                 os.path.join(EXAMPLES, "pseudo.json")):
         cfg = parse_config(path)
         assert cfg.npar == 2

@@ -37,7 +37,7 @@ def _run_workers(nprocs: int, extra_args=()):
             [sys.executable, "tests/multihost_worker.py", str(i),
              str(nprocs), str(port), *map(str, extra_args)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            cwd="/root/repo", env=env,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))), env=env,
         )
         for i in range(nprocs)
     ]
@@ -109,8 +109,8 @@ def test_two_process_chain_engine_matches_single_process(tmp_path):
 
 
 def test_four_process_engine_matches_single_process(tmp_path):
-    """The same engine contract at a 4-process x 2-device layout (VERDICT r4
-    item 1d): four jax.distributed processes against ONE shared store must
+    """The same engine contract at a 4-process x 2-device layout: four
+    jax.distributed processes against ONE shared store must
     produce the byte-identical database as the 1-process 8-device run -
     writer gating, barriers, and failure scopes hold at fan-outs beyond the
     2-process case every prior round exercised."""
@@ -278,7 +278,7 @@ def test_two_process_tolerance_scan_cut_matches_single_process(tmp_path):
 
 
 def test_two_process_host_bridge_exactly_once(tmp_path):
-    """HostBridgeSimulator on a multi-process mesh (VERDICT r4 weak #4):
+    """HostBridgeSimulator on a multi-process mesh:
     each process's io_callback fires for its ADDRESSABLE shard only, so a
     side-effecting black-box simulator runs EXACTLY ONCE per particle
     fleet-wide - audited via per-process append-only journals whose union

@@ -127,7 +127,7 @@ def test_two_concurrent_pools_share_queue(tmp_path):
     cmd = dice_exec_script(tmp_path)
     worker = (
         "import sys\n"
-        "sys.path.insert(0, '/root/repo')\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})\n"
         "from abcsmc_tpu.native import run_workers\n"
         f"print(run_workers({db!r}, 'python3 {cmd}', -1, 2, chunk_size=3))\n"
     )

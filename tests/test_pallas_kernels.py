@@ -1,5 +1,7 @@
-"""Pallas kernels vs their XLA reference implementations (interpret mode on
-the CPU mesh)."""
+"""The Pallas weight kernel (Triton route, interpret mode on the CPU) and its
+XLA reference, each against a float64 oracle."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,201 +11,96 @@ from abcsmc_tpu.ops.pallas_kernels import mixture_logsumexp
 from abcsmc_tpu.ops.weights import _log_kernel_mixture_density_xla, _prep_scaled
 
 
-@pytest.mark.parametrize("n,m,p", [(100, 70, 3), (600, 1100, 6), (33, 9, 1)])
-def test_mixture_logsumexp_matches_xla(n, m, p):
-    rng = np.random.default_rng(0)
+def _f64_logsumexp(a, b, log_w):
+    """logsumexp_j(log_w[j] - 0.5 * ||a_i - b_j||^2), literally, in f64."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    d = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+    lg = np.asarray(log_w, np.float64)[None, :] - 0.5 * d
+    mx = lg.max(1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        return mx[:, 0] + np.log(np.exp(lg - mx).sum(1))
+
+
+def _smc_state(n, m, p, seed):
+    rng = np.random.default_rng(seed)
     params = rng.uniform(0, 1, (n, p))
     prev = rng.uniform(0.2, 0.8, (m, p))
-    w = rng.uniform(0.5, 1.5, m)
-    w /= w.sum()
+    w = rng.dirichlet(np.ones(m))
     dv = rng.uniform(0.01, 0.1, p)
-
-    expect = np.asarray(_log_kernel_mixture_density_xla(
-        jnp.asarray(params), jnp.asarray(prev), jnp.log(jnp.asarray(w)),
-        jnp.asarray(dv), block=256,
-    ))
-
-    a, b, log_norm = _prep_scaled(
-        jnp.asarray(params, jnp.float32), jnp.asarray(prev, jnp.float32),
-        jnp.asarray(dv, jnp.float32),
-    )
-    got = np.asarray(mixture_logsumexp(
-        a, b, jnp.log(jnp.asarray(w, jnp.float32)),
-        block_i=128, block_j=256, interpret=True,
-    )) + float(log_norm)
-
-    np.testing.assert_allclose(got, expect, rtol=2e-4, atol=2e-4)
+    return params, prev, w, dv
 
 
-def _f64_reference(params, prev, w, dv):
-    import math
-
-    a = (params - prev.mean(0)) / np.sqrt(dv)
-    b = (prev - prev.mean(0)) / np.sqrt(dv)
-    D = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
-    L = np.log(w)[None, :] - 0.5 * D
-    mx = L.max(1, keepdims=True)
-    log_norm = -0.5 * np.sum(np.log(2.0 * math.pi * dv))
-    return mx[:, 0] + np.log(np.exp(L - mx).sum(1)) + log_norm
-
-
-@pytest.mark.parametrize("p", [3, 6, 19])
-def test_packed_split_bf16_high_is_f32_accurate(p):
-    """precision='high' with 6*(p+2) <= 128 takes the PACKED 3-way-split
-    layout: one default-precision dot over concatenated hi/mid/lo sections
-    must reconstruct the full-f32 product (the 2-way 3-pass fallback only
-    covers 16 mantissa bits). Checked against an f64 oracle at a tolerance
-    the old path could NOT meet (its floor was ~2.3e-4)."""
-    rng = np.random.default_rng(7)
+@pytest.mark.parametrize("p", [1, 3, 6, 19, 25])
+def test_kernel_matches_f64_oracle(p):
+    """Every parameter width the feature padding handles (P + 2 <= 16 and
+    above), with ragged query and center counts that fill no tile."""
     n, m = 257, 301
-    params = rng.uniform(0, 1, (n, p))
-    prev = rng.uniform(0.2, 0.8, (m, p))
-    w = rng.dirichlet(np.ones(m))
-    dv = rng.uniform(0.01, 0.1, p)
-    expect = _f64_reference(params, prev, w, dv)
-
-    from abcsmc_tpu.ops.weights import _prep_scaled
-
+    params, prev, w, dv = _smc_state(n, m, p, seed=p)
     a, b, log_norm = _prep_scaled(
         jnp.asarray(params, jnp.float32), jnp.asarray(prev, jnp.float32),
         jnp.asarray(dv, jnp.float32),
     )
     got = np.asarray(mixture_logsumexp(
-        a, b, jnp.log(jnp.asarray(w, jnp.float32)),
-        block_i=128, block_j=128, interpret=True, precision="high",
-    )) + float(log_norm)
-    np.testing.assert_allclose(got, expect, rtol=2e-5, atol=2e-5)
-
-
-def test_wide_p_high_falls_back_to_three_pass():
-    """p large enough that 6*(p+2) > 128 must still work (the 4-ref 3-pass
-    split layout) at the old path's accuracy."""
-    rng = np.random.default_rng(8)
-    n, m, p = 130, 140, 25          # 6*(25+2) = 162 > 128
-    params = rng.uniform(0, 1, (n, p))
-    prev = rng.uniform(0.2, 0.8, (m, p))
-    w = rng.dirichlet(np.ones(m))
-    dv = rng.uniform(0.01, 0.1, p)
-    expect = _f64_reference(params, prev, w, dv)
-
-    from abcsmc_tpu.ops.weights import _prep_scaled
-
-    a, b, log_norm = _prep_scaled(
-        jnp.asarray(params, jnp.float32), jnp.asarray(prev, jnp.float32),
-        jnp.asarray(dv, jnp.float32),
+        a, b, jnp.log(jnp.asarray(w, jnp.float32)), interpret=True,
+    ))
+    np.testing.assert_allclose(
+        got, _f64_logsumexp(a, b, np.log(w)), rtol=0, atol=2e-5
     )
-    got = np.asarray(mixture_logsumexp(
-        a, b, jnp.log(jnp.asarray(w, jnp.float32)),
-        block_i=128, block_j=128, interpret=True, precision="high",
-    )) + float(log_norm)
-    np.testing.assert_allclose(got, expect, rtol=5e-4, atol=5e-4)
+    # the same density through the XLA reference path
+    expect = _f64_logsumexp(a, b, np.log(w)) + float(log_norm)
+    xla = np.asarray(_log_kernel_mixture_density_xla(
+        jnp.asarray(params), jnp.asarray(prev), jnp.log(jnp.asarray(w)),
+        jnp.asarray(dv), block=128,
+    ))
+    np.testing.assert_allclose(xla, expect, rtol=0, atol=2e-5)
 
 
-def test_split_bf16_3_reconstructs_f32():
-    """hi/mid/lo are each bf16-exact and sum exactly back to x."""
-    from abcsmc_tpu.ops.pallas_kernels import _split_bf16_3
-
-    rng = np.random.default_rng(9)
-    x = jnp.asarray(
-        np.concatenate([
-            rng.normal(size=1000) * 10 ** rng.uniform(-20, 20, 1000),
-            [0.0, 1.0, -1.0, 1e-30, -1e30],
-        ]), jnp.float32,
-    )
-    hi, mid, lo = _split_bf16_3(x)
-    for part in (hi, mid, lo):
-        rt = np.asarray(part).astype(np.float32)
-        # bf16-exact: low 16 mantissa bits are zero
-        bits = rt.view(np.uint32)
-        assert np.all(bits & 0xFFFF == 0)
-    np.testing.assert_array_equal(
-        np.asarray(hi) + (np.asarray(mid) + np.asarray(lo)), np.asarray(x)
-    )
+@pytest.mark.parametrize("n,m", [(1, 1), (63, 65), (64, 64), (130, 7)])
+def test_kernel_ragged_tiles(n, m):
+    """Row and center counts on, below and above the 64-wide tiles: padded
+    rows are trimmed and padded centers contribute nothing."""
+    rng = np.random.default_rng(n * 1000 + m)
+    a = rng.normal(size=(n, 6)).astype(np.float32)
+    b = rng.normal(size=(m, 6)).astype(np.float32)
+    lw = np.log(rng.dirichlet(np.ones(m))).astype(np.float32)
+    got = np.asarray(mixture_logsumexp(a, b, lw, interpret=True))
+    assert got.shape == (n,)
+    np.testing.assert_allclose(got, _f64_logsumexp(a, b, lw), atol=2e-5)
 
 
-def test_mixture_logsumexp_modes_agree():
-    """static-max and online-max kernels are the same statistic; auto picks
-    static on well-posed inputs."""
+@pytest.mark.parametrize("zero", ["neg_inf", "tiny"])
+def test_kernel_zero_and_tiny_weights(zero):
+    """Exactly-zero mixture weights (log w = -inf) and 1e-30 weights drop
+    out cleanly: the result equals the density over the other centers."""
     rng = np.random.default_rng(2)
-    n, m, p = 200, 300, 6
-    a = jnp.asarray(rng.normal(size=(n, p)), jnp.float32)
-    b = jnp.asarray(rng.normal(size=(m, p)), jnp.float32)
-    lw = jnp.asarray(np.log(rng.uniform(0.5, 1.5, m) / m), jnp.float32)
-    outs = {
-        mode: np.asarray(mixture_logsumexp(
-            a, b, lw, block_i=128, block_j=128, interpret=True, mode=mode
-        ))
-        for mode in ("auto", "static", "online")
-    }
-    np.testing.assert_allclose(outs["auto"], outs["static"], rtol=0, atol=0)
-    np.testing.assert_allclose(outs["static"], outs["online"],
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_mixture_logsumexp_underflow_fallback():
-    """A query ~1e4 kernel sds from every center underflows the static
-    exp-sum (exp(-5e7) = 0); mode='auto' must detect the -inf row and rerun
-    through the online kernel, returning the correct finite value."""
-    b = jnp.zeros((16, 2), jnp.float32)
-    lw = jnp.full((16,), np.log(1.0 / 16), jnp.float32)
-    a = jnp.concatenate([
-        jnp.zeros((3, 2), jnp.float32),
-        jnp.full((1, 2), 1e4, jnp.float32),     # the far-tail query
-    ])
-    static = np.asarray(mixture_logsumexp(
-        a, b, lw, block_i=128, block_j=128, interpret=True, mode="static"
-    ))
-    assert np.isneginf(static[3])               # the underflow really occurs
-    out = np.asarray(mixture_logsumexp(
-        a, b, lw, block_i=128, block_j=128, interpret=True, mode="auto"
-    ))
-    assert np.all(np.isfinite(out))
-    np.testing.assert_allclose(out[3], -0.5 * 2 * 1e8 + np.log(1.0 / 16),
-                               rtol=1e-6)
-    online = np.asarray(mixture_logsumexp(
-        a, b, lw, block_i=128, block_j=128, interpret=True, mode="online"
-    ))
-    np.testing.assert_allclose(out, online, rtol=0, atol=0)
-
-
-def test_mixture_logsumexp_extreme_weights():
-    """-inf log-weights (padded/zero-weight centers) must drop out cleanly."""
-    rng = np.random.default_rng(1)
-    n, m, p = 64, 40, 2
-    a = jnp.asarray(rng.normal(size=(n, p)), jnp.float32)
-    b = jnp.asarray(rng.normal(size=(m, p)), jnp.float32)
+    n, m, p = 64, 40, 3
+    a = rng.normal(size=(n, p)).astype(np.float32)
+    b = rng.normal(size=(m, p)).astype(np.float32)
     lw = np.full(m, np.log(1.0 / 20), np.float32)
-    lw[20:] = -1e30  # effectively zero weight
-    got = np.asarray(mixture_logsumexp(
-        a, b, jnp.asarray(lw), block_i=128, block_j=128, interpret=True
-    ))
-    # equal to using only the first 20 centers
-    expect = np.asarray(mixture_logsumexp(
-        a, b[:20], jnp.asarray(lw[:20]), block_i=128, block_j=128,
-        interpret=True,
-    ))
-    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
+    lw[20:] = -np.inf if zero == "neg_inf" else np.log(1e-30)
+    got = np.asarray(mixture_logsumexp(a, b, jnp.asarray(lw), interpret=True))
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, _f64_logsumexp(a, b, lw), atol=2e-5)
+    if zero == "neg_inf":
+        alone = np.asarray(mixture_logsumexp(
+            a, b[:20], jnp.asarray(lw[:20]), interpret=True
+        ))
+        np.testing.assert_allclose(got, alone, atol=1e-6)
 
 
-def test_mixture_logsumexp_true_neg_inf_weights():
-    """A TRUE -inf log-weight (an exactly-zero mixture weight, e.g. one
-    dominating survivor underflowing the rest) must not poison the split-
-    bf16 path: (-inf) - (-inf) = NaN in the lo half would spread through an
-    MXU pass to every logit. Regression for the round-3 review finding."""
-    rng = np.random.default_rng(2)
-    n, m, p = 32, 24, 3
-    a = jnp.asarray(rng.normal(size=(n, p)), jnp.float32)
-    b = jnp.asarray(rng.normal(size=(m, p)), jnp.float32)
-    lw = np.full(m, np.log(1.0 / 12), np.float32)
-    lw[12:] = -np.inf
-    for prec in ("high", "highest"):
-        got = np.asarray(mixture_logsumexp(
-            a, b, jnp.asarray(lw), block_i=128, block_j=128,
-            interpret=True, precision=prec,
-        ))
-        assert np.all(np.isfinite(got)), prec
-        expect = np.asarray(mixture_logsumexp(
-            a, b[:12], jnp.asarray(lw[:12]), block_i=128, block_j=128,
-            interpret=True, precision=prec,
-        ))
-        np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
+def test_kernel_underflow_tail_query():
+    """A query ~1e4 kernel sds from every center: every exp underflows
+    against a fixed offset, so only the online row max returns the right
+    finite value."""
+    b = np.zeros((16, 2), np.float32)
+    lw = np.full((16,), np.log(1.0 / 16), np.float32)
+    a = np.concatenate([
+        np.zeros((3, 2), np.float32),
+        np.full((1, 2), 1e4, np.float32),     # the far-tail query
+    ])
+    out = np.asarray(mixture_logsumexp(a, b, lw, interpret=True))
+    assert np.all(np.isfinite(out))
+    np.testing.assert_allclose(out[3], -0.5 * 2 * 1e8 + math.log(1.0 / 16),
+                               rtol=1e-6)
+    np.testing.assert_allclose(out[:3], 0.0, atol=1e-6)

@@ -1,6 +1,7 @@
 """Distribution / sampling semantics tests, including the ParRNG odometer
 replacement (ParRNG.h:17-36 semantics as exercised by tests/ParRNG.test.cpp)."""
 
+import os
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -210,7 +211,10 @@ def test_noise_multivariate_valid_rows():
 
 
 def test_parameter_set_from_reference_config():
-    cfg = parse_config("/root/reference/examples/reference.json")
+    cfg = parse_config(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "fixtures",
+        "reference_quickstart.json",
+    ))
     ps = ParameterSet.from_specs(cfg.parameters)
     assert ps.npar == 2
     samples, _ = ps.sample_priors(jax.random.PRNGKey(0), 100)

@@ -2,7 +2,7 @@
 virtual CPU devices), via subprocess workers (the pytest process is pinned
 to the 8-device mesh by conftest).
 
-VERDICT r4 item 1: everything that had ever RUN used <= 8 devices; the
+everything that had ever RUN used <= 8 devices; the
 16/32-device story was compile-level only. These tests EXECUTE the regimes
 that only exist above 8 devices and assert equality with the host rule and
 across mesh sizes:
@@ -35,7 +35,7 @@ def _run_scale_worker(n_devices: int, scenario: str, out_path: str) -> dict:
     p = subprocess.run(
         [sys.executable, "tests/scale_worker.py", str(n_devices), scenario,
          out_path],
-        capture_output=True, text=True, cwd="/root/repo", env=env,
+        capture_output=True, text=True, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))), env=env,
         timeout=540,
     )
     assert p.returncode == 0, f"scale_worker failed:\n{p.stdout}\n{p.stderr}"

@@ -1,7 +1,7 @@
 """The package-wide matmul precision policy (docs/DESIGN.md "Precision
 policy"): importing abcsmc_tpu sets jax_default_matmul_precision=highest so
-covariance/Gram/score matmuls don't silently run at bf16 input rounding on
-TPU (measured 4.5e-2 log-density error vs 1.1e-4; docs/TPU_VALIDATION.md).
+covariance/Gram/score matmuls don't silently run with TF32 input rounding
+on a GPU (a 10-bit mantissa: ~1e-3 relative error in every product).
 """
 
 import os

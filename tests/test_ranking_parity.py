@@ -8,7 +8,7 @@ import numpy as np
 from abcsmc_tpu.ops import pls as pls_mod
 from abcsmc_tpu.ops import ranking
 
-from tests.test_pls import nipals_pls
+from test_pls import nipals_pls  # tests/ is on sys.path under pytest
 
 
 def numpy_particle_ranking_pls(metric_vals, param_vals, obs, training_frac):

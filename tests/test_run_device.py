@@ -135,7 +135,7 @@ def test_run_device_scan_path_matches_sequential_loop():
 def test_run_device_chain_path_matches_sequential_loop():
     """Fresh VARYING-size runs take the bucketed run_chain fast path (the
     reference quick-start's [300, 500, 500, 750, 1000] schedule never hit
-    run_scan - VERDICT r3 weak #7); forcing the sequential per-set loop
+    run_scan); forcing the sequential per-set loop
     must give the identical stored result on CPU (run_chain replicates the
     key-split chain exactly)."""
     sizes = [32, 64, 64, 64, 96]
@@ -356,7 +356,7 @@ def test_run_device_resumes_half_simulated_store(tmp_path):
 
 
 def test_run_device_resume_ranks_from_stored_metrics(tmp_path):
-    """VERDICT r2 item #3: a mid-set device resume must rank from the
+    """A mid-set device resume must rank from the
     DURABLE metrics, not from its own re-simulation. Stored 'D' rows here are
     perturbed as if written by a different backend/dtype; the posterior ranks
     the device continuation writes for the resumed set must equal a pure-host
@@ -488,7 +488,7 @@ def test_run_device_projection_sweep(tmp_path):
 
 
 def test_run_device_box_cox_stays_on_device():
-    """VERDICT r2 item #6: box_cox configs run the fused device path (the
+    """box_cox configs run the fused device path (the
     transform is a device stage now, parallel/generation.py) - the host
     fallback must NOT be taken."""
     cfg = dice_cfg(n=24)

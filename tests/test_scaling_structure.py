@@ -109,35 +109,30 @@ def _compile_hlo(gen, n, keep, first=True):
 
 
 def test_hbm_scaled_auto_thresholds(monkeypatch):
-    """The row-chunking / propose-split auto-points were measured on a 16 GB
-    v5e; on hardware reporting a different per-device capacity they must
-    scale linearly (clamped), and backends with no memory stats must fall
-    back to the v5e constants (VERDICT r4 weak #5)."""
+    """The row-chunking / propose-split auto-points follow a rule in bytes:
+    half the memory the device reports, over the per-row bytes of the
+    buffers each threshold guards. A backend reporting no limit (the CPU)
+    never chunks or splits on its own; forced settings beat the rule."""
     import abcsmc_tpu.parallel.generation as G
-    from scaling_analysis import build_step
+    from scaling_analysis import NMET, NPAR, build_step
 
-    cases = [
-        (32 * 2**30, 2 * (1 << 25), 2 * (1 << 26)),   # 32 GB: 2x
-        (8 * 2**30, (1 << 25) // 2, (1 << 26) // 2),  # 8 GB: 0.5x
-        (None, 1 << 25, 1 << 26),                     # unreported: v5e base
-        (2**50, 16 * (1 << 25), 16 * (1 << 26)),      # absurd: clamp 16x
-        (1, (1 << 25) // 4, (1 << 26) // 4),          # absurd: clamp 1/4x
-        # the scale quantizes to the nearest power of two: a v5e REPORTING
-        # usable HBM a few percent under its nominal 16 GB (XLA reserves a
-        # slice) must keep the measured constants, not silently drift
-        # below them
-        (int(15.5 * 2**30), 1 << 25, 1 << 26),        # real v5e report: 1x
-        (30 * 2**30, 2 * (1 << 25), 2 * (1 << 26)),   # real 32 GB report: 2x
-    ]
-    for hbm, want_chunk, want_split in cases:
-        monkeypatch.setattr(G, "_detect_hbm_bytes", lambda m, h=hbm: h)
-        gen = build_step(8, 64, 16)
-        assert gen.row_chunk_threshold == want_chunk, (hbm, gen.row_chunk_threshold)
-        assert gen.split_threshold == want_split, (hbm, gen.split_threshold)
-
-    # the scaled threshold actually gates the split decision
-    monkeypatch.setattr(G, "_detect_hbm_bytes", lambda m: None)
     gen = build_step(8, 64, 16)
+    it = 4                                  # build_step runs float32
+    assert gen.resident_row_bytes == it * (7 * NMET + 3 * NPAR + 4)
+    assert gen.propose_row_bytes == it * (NPAR + NMET + 2 + 4 * NPAR + 6)
+    for limit in (60 * 2**30, 16 * 2**30, 1 << 20):
+        monkeypatch.setattr(G, "_detect_device_bytes", lambda m, b=limit: b)
+        gen = build_step(8, 64, 16)
+        assert gen.device_bytes == limit
+        assert gen.row_chunk_threshold == (limit // 2) // gen.resident_row_bytes
+        assert gen.split_threshold == (limit // 2) // gen.propose_row_bytes
+
+    monkeypatch.setattr(G, "_detect_device_bytes", lambda m: None)
+    gen = build_step(8, 64, 16)
+    assert gen.row_chunk_threshold is None and gen.split_threshold is None
+    assert not gen.split_propose_active(8 * 10**9, 8 * 10**9)
+
+    # the threshold actually gates the split decision
     gen.split_threshold = 64
     assert gen.split_propose_active(8 * 64, 8 * 64)       # ln = 64 >= 64
     assert not gen.split_propose_active(8 * 63, 8 * 63)   # ln = 63 < 64

@@ -1,4 +1,4 @@
-"""Importance-weight kernel: the blocked MXU formulation must match a literal
+"""Importance-weight kernel: the blocked matmul formulation must match a literal
 numpy transcription of the reference's O(N*M*P) loop (src/AbcUtil.cpp:547-586)."""
 
 import jax

@@ -1,9 +1,9 @@
 """Durable-store scaling probe: ONE engine-level run_device at device-scale N
 with SQLite mirroring ON (the default), on the virtual CPU mesh.
 
-VERDICT r4 item 2: the DB *is* the checkpoint in the reference's design
-(/root/reference/src/AbcSmc.cpp:452-479), so the mirror must survive the
-population sizes the TPU path unlocks. This measures the full bill - engine
+The DB *is* the checkpoint in the reference's design
+(src/AbcSmc.cpp:452-479), so the mirror must survive the
+population sizes the device path unlocks. This measures the full bill - engine
 wall-clock split (dispatch vs mirror), peak host RSS, database size - for a
 fresh 1-set run at N particles (2 params x 2 metrics, linear-Gaussian device
 simulator). Results recorded in docs/SCALING.md 'The durable-store bill'.

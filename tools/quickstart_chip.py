@@ -1,15 +1,15 @@
-"""The reference quick-start, end-to-end on the chip via the chain path.
+"""The reference quick-start, end-to-end via the chain path.
 
-Reproduces /root/reference/examples/reference.json (30 SMC sets, sizes
+Runs the reference's documented quick-start (30 SMC sets, sizes
 [300, 500, 500, 750, 1000] then 1000, predictive_prior_fraction 0.5,
 MULTIVARIATE noise, the dice game with U(1,1000) priors) through
-``AbcSmc.run_device`` and records what VERDICT r4 item 6 asks for: the
-compiled-program count (must be per size TRANSITION, not per set - 7 vs 31),
-the wall-clock split, and the posterior, comparable against the CPU f64 run.
+``AbcSmc.run_device`` and records the compiled-program count (one per size
+TRANSITION, not per set - 7 vs 31), the wall-clock split, and the
+posterior, comparable between the GPU (f32) and the CPU (f64) run.
 
-    python tools/quickstart_chip.py --platform tpu|cpu [--db PATH]
+    python tools/quickstart_chip.py --platform gpu|cpu [--db PATH]
 
-One JSON line per run; results recorded in docs/BENCH_EXTRA_TPU.md.
+One JSON line per run, naming the device.
 """
 
 import argparse
@@ -19,7 +19,7 @@ import sys
 import time
 
 ap = argparse.ArgumentParser()
-ap.add_argument("--platform", choices=["tpu", "cpu"], default="cpu")
+ap.add_argument("--platform", choices=["gpu", "cpu"], default="cpu")
 ap.add_argument("--db", default="")
 args = ap.parse_args()
 
@@ -32,7 +32,9 @@ if args.platform == "cpu":
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if args.platform == "tpu":
+if args.platform == "gpu":
+    if jax.devices()[0].platform != "gpu":
+        sys.exit(f"--platform gpu: JAX found {jax.devices()[0].platform!r}")
     from abcsmc_tpu._cache import enable_persistent_cache
 
     enable_persistent_cache()
@@ -73,6 +75,7 @@ def main():
     out = {
         "platform": args.platform,
         "backend": jax.default_backend(),
+        "device_kind": jax.devices()[0].device_kind,
         "sets": phases["sets"],
         "programs": phases["programs"],
         "wall_s": round(wall, 2),
